@@ -1,8 +1,9 @@
 """North-star benchmark: 500-seq ncRNA stem_kernel_lite Gram wall time.
 
-BASELINE.json's headline config — end-to-end (fold -> DAG -> bucketed Gram
--> LIBSVM output) through the real CLI on one chip.  Prints cold (includes
-XLA compiles not yet in the on-disk cache) and warm wall times.
+The headline configuration — end-to-end (fold -> DAG -> bucketed Gram
+-> LIBSVM output) through the real CLI on one GPU.  Prints cold (includes
+XLA compiles not yet in the on-disk cache) and warm wall times, with the
+device and the card's power limit; exits without a GPU.
 
 Usage: python bench_500.py [n_seqs]
 """
@@ -44,7 +45,11 @@ def make_dataset(n: int, seed: int = 0) -> list[str]:
 
 
 def main() -> None:
+    from stem_kernel_tpu.utils.device import require_gpu
+
+    device = require_gpu()
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 500
+    print(f"device: {device}")
     seqs = make_dataset(n)
     print(f"{n} seqs, lengths {min(map(len, seqs))}-{max(map(len, seqs))}")
     with tempfile.TemporaryDirectory() as td:
@@ -62,7 +67,8 @@ def main() -> None:
 
         for tag in ("cold", "warm"):
             t0 = time.time()
-            rc = cli_main(["-n", f"{td}/km_{tag}.dat", "+1", pos, "-1", neg])
+            rc = cli_main(["-n", "--devices", "1", f"{td}/km_{tag}.dat",
+                           "+1", pos, "-1", neg])
             dt = time.time() - t0
             assert rc == 0
             print(f"{tag}: {dt:.1f}s  ({n} seqs, "

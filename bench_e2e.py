@@ -1,8 +1,8 @@
 """End-to-end pipeline benchmark: fold -> BPLA Gram -> SVM CV AUC.
 
-The BASELINE.md "N-seq ncRNA Gram wall time" measurement: synthetic hairpin
-families vs dinucleotide shuffles, every stage timed, one JSON line per stage
-plus a summary line.  Run on the real TPU (default platform) or CPU.
+The "N-seq ncRNA Gram wall time" measurement: synthetic hairpin families vs
+dinucleotide shuffles, every stage timed, one JSON line per stage plus a
+summary line naming the device.  Exits without a GPU.
 
 Usage: python bench_e2e.py [n_seqs] [seq_len]
 """
@@ -15,13 +15,11 @@ import time
 
 import numpy as np
 
-import jax
-
 
 def main(n_seqs: int = 100, seq_len: int = 100) -> None:
-    from stem_kernel_tpu.cli.app import enable_compile_cache
+    from stem_kernel_tpu.utils.device import require_gpu
 
-    enable_compile_cache()
+    device = require_gpu()
     rng = np.random.default_rng(0)
 
     from stem_kernel_tpu.fold.bpmatrix import bpp_for_alignments
@@ -97,7 +95,7 @@ def main(n_seqs: int = 100, seq_len: int = 100) -> None:
         "total_seconds": round(total, 2),
         "cold_total_seconds": round(sum(t_cold.totals.values()), 2),
         "cv_accuracy": round(acc, 4),
-        "platform": jax.devices()[0].platform,
+        "device": device,
     }))
 
 

@@ -1,8 +1,7 @@
-"""BASELINE config 3: full stem kernel on 200 mixed ncRNA-like seqs.
+"""Full stem kernel on 200 mixed ncRNA-like seqs.
 
 Runs the real stem_kernel CLI with the banded windowed-memory engine
-(-b 16) end to end — the workload that was out of reach before round 4
-(~40 min of kernel time at round 3's 8 pairs/s; not CLI-reachable at all).
+(-b 16) end to end on one GPU, and names the device; exits without a GPU.
 
 Usage: python bench_full200.py [n_seqs] [band]
 """
@@ -33,6 +32,9 @@ def make_mixed(n: int, seed: int = 0) -> list[str]:
 
 
 def main() -> None:
+    from stem_kernel_tpu.utils.device import require_gpu
+
+    device = require_gpu()
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 200
     band = int(sys.argv[2]) if len(sys.argv) > 2 else 16
     seqs = make_mixed(n)
@@ -48,7 +50,7 @@ def main() -> None:
         from stem_kernel_tpu.cli.stem_kernel import main as cli_main
 
         t0 = time.time()
-        rc = cli_main(["-n", "-b", str(band), f"{td}/km.dat",
+        rc = cli_main(["-n", "--devices", "1", "-b", str(band), f"{td}/km.dat",
                        "+1", pos, "-1", neg])
         wall = time.time() - t0
         assert rc == 0
@@ -56,7 +58,8 @@ def main() -> None:
         "metric": "full_stem_200_wall_s",
         "value": round(wall, 1),
         "unit": f"s ({n} mixed 80-300nt seqs, banded full stem kernel "
-                f"band={band}, {n*(n+1)//2} pairs, CLI end-to-end, 1 chip)",
+                f"band={band}, {n*(n+1)//2} pairs, CLI end-to-end, 1 device)",
+        "device": device,
     }))
 
 

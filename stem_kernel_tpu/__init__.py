@@ -1,4 +1,4 @@
-"""stem_kernel_tpu — a TPU-native RNA kernel-machine engine.
+"""stem_kernel_tpu — an RNA kernel-machine engine in JAX for NVIDIA GPUs.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of
 keio-bioinformatics/stem_kernel (reference mounted at /root/reference):
@@ -15,7 +15,8 @@ keio-bioinformatics/stem_kernel (reference mounted at /root/reference):
                (reference: stem_kernel_lite/, bpla_kernel/, stem_kernel/,
                string_kernel/, simpal/, common/conv_kernel.h).
 - ``ops``      Low-level batched DP primitives (linear/semiring recurrences,
-               wavefront scans) and Pallas kernels.
+               wavefront scans) and the Pallas Triton kernel of the BPLA
+               local-alignment DP.
 - ``gram``     The N x N Gram-matrix engine: pair batching, length bucketing,
                mesh-sharded tiles, normalization, LIBSVM-format I/O
                (reference: common/kernel_matrix.*, common/framework.*).
@@ -36,23 +37,21 @@ __version__ = "0.1.0"
 
 
 def _enable_compile_cache() -> None:
-    """Persist XLA executables across processes, for EVERY import path.
+    """Persist XLA executables across processes, for every import path.
 
-    This was previously done only by the CLI driver (cli/app.py); library
-    users and scripts importing the package directly paid the full
-    compile cost (minutes for the fold engines) in every fresh process.
-    Tests override by disabling the compilation cache in conftest.
+    JAX reads ``JAX_COMPILATION_CACHE_DIR`` itself; when it is unset the
+    cache goes to ``.jax_cache/`` at the root of the checkout, a fixed path
+    listed in ``.gitignore`` (the path is part of the cache's key, so a
+    directory that moves never hits).
     """
-    import jax
-
     import os
 
-    cache_dir = os.path.join(
-        os.environ.get("XDG_CACHE_HOME", os.path.expanduser("~/.cache")),
-        "stem_kernel_tpu", "jax",
-    )
-    if jax.config.jax_compilation_cache_dir is None:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
+    import jax
+
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        jax.config.update("jax_compilation_cache_dir",
+                          os.path.join(root, ".jax_cache"))
 
 
 _enable_compile_cache()

@@ -146,7 +146,7 @@ def parse_positional(ns: argparse.Namespace) -> AppOptions:
 
 def load_pf_scales(pf_files: list[str], counts: list[int]) -> list[float]:
     """Read per-example pf_scale side files (one float per example,
-    stem_kernel_lite/data.cpp:510-538).  The TPU fold engine performs its own
+    stem_kernel_lite/data.cpp:510-538).  The fold engine performs its own
     per-length rescaling, so the values are only validated against example
     counts and returned for diagnostics."""
     scales: list[float] = []
@@ -191,17 +191,6 @@ def load_labeled(labels: list[str], files: list[str], verbose: bool = True,
 Featurizer = Callable[[list[Alignment]], tuple[Mapping[str, np.ndarray], object]]
 
 
-def enable_compile_cache() -> None:
-    """Persist XLA executables across CLI invocations.
-
-    Delegates to the package-level helper (stem_kernel_tpu.__init__ already
-    runs it at import; calling again is a no-op) so the cache location is
-    defined in exactly one place."""
-    from .. import _enable_compile_cache
-
-    _enable_compile_cache()
-
-
 def run_app(
     opts: AppOptions,
     featurize: Featurizer,
@@ -226,7 +215,7 @@ def run_app(
     train aux.
     ``slab_batches``: dispatch granularity of the Gram engine — fast
     kernels (BPLA/string/simpal) pass 64 to amortize per-slab dispatch
-    latency; compute-bound kernels keep 16 (measured, BASELINE.md).
+    latency; compute-bound kernels keep 16.
 
     Device setup happens HERE, inside the binary — the shipped CLIs are the
     distributed programs, exactly as the reference's binaries are the MPI
@@ -237,7 +226,6 @@ def run_app(
     gated on process 0 (framework.h:135-163).  An explicit ``mesh=``
     argument overrides the flag-resolved mesh (library use).
     """
-    enable_compile_cache()
     if mesh is None:
         from ..parallel.distributed import initialize
         from ..parallel.mesh import resolve_mesh

@@ -13,8 +13,9 @@ import numpy as np
 
 from ..io.aaprofile import aa_features
 from ..models.blosum_data import BLOSUM62
-from ..models.bpla import la_score_matrix, local_alignment_max, pair_mask
-from ..ops.pallas_la import la_exp_auto
+from ..models.bpla import (
+    la_score_matrix, local_alignment_exp, local_alignment_max, pair_mask,
+)
 from .app import add_common_options, parse_args_with_positionals, parse_positional, run_app
 
 
@@ -42,10 +43,10 @@ def main(argv=None) -> int:
     def make_fn(_aux):
         def kernel_fn(x, y):
             s = la_score_matrix(x["profile"], y["profile"], table)
+            mask = pair_mask(x["length"], s.shape[1], y["length"], s.shape[2])
             if ns.SW:
-                mask = pair_mask(x["length"], s.shape[1], y["length"], s.shape[2])
                 return local_alignment_max(s, mask, ns.gap, ns.ext)
-            return la_exp_auto(s, x["length"], y["length"], ns.beta, ns.gap, ns.ext)
+            return local_alignment_exp(s, mask, ns.beta, ns.gap, ns.ext)
 
         return kernel_fn
 

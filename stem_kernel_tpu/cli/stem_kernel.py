@@ -72,30 +72,16 @@ def main(argv=None) -> int:
     # /root/reference/stem_kernel/stem_kernel.cpp:70-76,165-246).  With
     # -a > 0 too, the window anchors follow the pair-HMM alignment instead
     # of the scaled diagonal (partial_dp's alignment_constraints mode,
-    # conformed to the staircase — models.full_stem.phmm_anchor).  On TPU
-    # it runs the VMEM-resident Pallas kernel (ops.pallas_full_stem);
-    # elsewhere the XLA scan.  The dense O(n^4)-state path remains for
-    # band=0 (with or without posterior windows).
+    # conformed to the staircase — models.full_stem.phmm_anchor).  The
+    # dense O(n^4)-state path remains for band=0 (with or without
+    # posterior windows).
     use_banded = ns.band_width > 0
 
     def make_fn(_aux):
         if use_banded:
-            import jax
-
-            on_tpu = jax.default_backend() == "tpu"
+            from ..models.full_stem import full_stem_kernel_banded_log
 
             def kernel_fn(x, y):
-                if on_tpu:
-                    from ..ops.pallas_full_stem import full_stem_banded_pallas_log
-
-                    return full_stem_banded_pallas_log(
-                        x["codes"], y["codes"], x["length"], y["length"],
-                        x["bp"], y["bp"], ns.gap, ns.stack, ns.substitution,
-                        band=ns.band_width,
-                        ali_bound=ns.alignment_constraint,
-                    )
-                from ..models.full_stem import full_stem_kernel_banded_log
-
                 return full_stem_kernel_banded_log(
                     x["codes"], y["codes"], x["length"], y["length"],
                     x["bp"], y["bp"], ns.gap, ns.stack, ns.substitution,

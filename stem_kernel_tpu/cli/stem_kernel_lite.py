@@ -39,8 +39,8 @@ def add_fold_options(p: argparse.ArgumentParser) -> None:
                    help="fast folding tier: drop the int11/int21/int22/"
                         "bulge-1 special tables and collapse the interior "
                         "mismatch classes (generic-formula energies for "
-                        "every loop) — ~1.6x fold throughput; BPP accuracy "
-                        "impact measured in BASELINE.md")
+                        "every loop) — a cheaper fold program at some BPP "
+                        "accuracy")
 
 
 def fold_opts_from(ns: argparse.Namespace) -> BPMatrixOptions:
@@ -98,9 +98,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="substitution weight for base pairs (with --no-ribosum)")
     s.add_argument("--precision", choices=["highest", "high", "default"],
                    default="high",
-                   help="MXU precision for the stem closure matmuls: "
-                        "'high' (~1e-3 rel, the fast default), 'highest' "
-                        "(full f32, validation), 'default' (bf16)")
+                   help="float32 matmul precision of the stem closure: "
+                        "'high' (the default; TF32 on a GPU, normalized "
+                        "Gram within ~1e-3 of 'highest'), 'highest' (full "
+                        "f32, validation), 'default' (TF32 on a GPU too)")
     s.add_argument("--length-band", type=int, default=10,
                    help="band of length difference between bases")
     s.add_argument("--coarse-shapes", action="store_true",

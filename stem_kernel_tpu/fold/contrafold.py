@@ -4,7 +4,7 @@ A real replacement for the reference's CONTRAFOLD method, which delegates
 posterior computation to libcontrafold
 (/root/reference/common/bpmatrix.cpp:264-283, ``CONTRAfold<float>
 cf; cf.ComputePosterior(s, posterior)``).  Instead of binding a C++
-library, the model itself lives here, TPU-first, in three pieces:
+library, the model itself lives here, in three pieces:
 
 1. **Feature space** — the CONTRAfold v2.02 default (complementary-pair)
    feature classes (Do, Woods & Batzoglou, Bioinformatics 2006): base-pair
@@ -18,7 +18,7 @@ library, the model itself lives here, TPU-first, in three pieces:
 2. **Inference** — :func:`contrafold_energy_params` maps a weight set onto
    the framework's LUT-driven McCaskill engines (fold.tables /
    fold.mccaskill{,_scaled}), so CONTRAfold-model BPPs run at the exact
-   same TPU speed as the Turner model: posteriors = the engines' outside
+   same speed as the Turner model: posteriors = the engines' outside
    pass.  The mapping is exact for every feature class above given the
    engine switches added for it (``mismatch_all_hairpins``,
    ``bulge1_no_stack``/``bulge1_nuc``, ``interior_explicit``,

@@ -5,7 +5,7 @@ In-framework replacement for the reference's Vienna `pf_fold` calls
 implementing the full Vienna-structured energy model (see fold.params and
 fold.tables for the loop-class taxonomy).
 
-TPU-first design:
+Design:
 
 - all DP tables live in **span layout** ``T[d, i]`` = value of subsequence
   (i, i+d), so each anti-diagonal of the classic triangular tables is one
@@ -486,7 +486,7 @@ def mccaskill_bpp(
 ) -> tuple[np.ndarray, float]:
     """(bpp, logZ) for one sequence; bpp[i, j] = P(i pairs j), i < j, 0-based.
 
-    The TPU replacement for Vienna pf_fold + pr-matrix extraction
+    The in-framework replacement for Vienna pf_fold + pr-matrix extraction
     (/root/reference/common/bpmatrix.cpp:166-174, common/pf_wrapper.cpp:15-36).
     """
     params = params or default_params()
@@ -521,7 +521,7 @@ def mccaskill_bpp_batch(
     device program in the scaled linear domain (see
     :mod:`.mccaskill_scaled`) — no gathers, per-span rescaling, orders of
     magnitude faster.  ``engine="log"`` keeps the exact log-space
-    per-example path (the oracle): its gather-heavy steps explode XLA-TPU
+    per-example path (the oracle): its gather-heavy steps explode XLA
     compile time under vmap, so the batch is dispatched as a Python loop
     over the two per-example jits with async dispatch overlapping the
     examples.

@@ -1,4 +1,4 @@
-"""Scaled linear-domain McCaskill engine — the fast batched TPU path.
+"""Scaled linear-domain McCaskill engine — the fast batched device path.
 
 Same Vienna-structured model and recursions as :mod:`.mccaskill` (the
 log-space oracle), but designed for the machine instead of for numerical
@@ -19,7 +19,7 @@ convenience:
   exp(penalties) applied to a slab of class-weighted Qb rows (the inner
   mismatch factor is folded into the slab when each row is written; the
   outer factor multiplies the conv output) — ``lax.conv_general_dilated``
-  on the MXU.  Stack / bulge-1 / int11 / int21 / int22 are explicit
+  as matmuls.  Stack / bulge-1 / int11 / int21 / int22 are explicit
   shifted-row terms with their own LUT rows.
 - **multiloop split sums as slab reductions**; **batching via vmap**.
 
@@ -127,11 +127,10 @@ def _conv_rows(slab: jax.Array, kernel: jax.Array, flip: bool) -> jax.Array:
        out[i] = sum_{c,a} slab[c, i - a] * K[c, a]   (flip=True)
     slab: (C, n), kernel: (C, A) -> out: (n,).
 
-    Factored as one (A, C) @ (C, n) matmul (MXU) followed by a pad-reshape
-    skew sum over the offset axis — NOT conv_general_dilated: a (C, A) =
-    33x33 window conv compiles pathologically on the TPU backend (measured
-    ~620 s XLA compile for the fold program vs ~10 s with small kernels;
-    this formulation removes the conv entirely at identical flops)."""
+    Factored as one (A, C) @ (C, n) matmul followed by a pad-reshape skew
+    sum over the offset axis — NOT conv_general_dilated: a (C, A) = 33x33
+    window conv made the fold program's XLA compile pathologically slow;
+    this formulation removes the conv entirely at identical flops."""
     w = jnp.einsum(
         "ca,cn->an", kernel.astype(slab.dtype), slab,
         precision=jax.lax.Precision.HIGHEST,
@@ -170,7 +169,7 @@ def _span_tables(codes, length, params, w_extra, dt, pt_ov=None):
     Returns (log tables dict, exp tables dict): log form for things that
     set row scales (wpair via logQbS, hairpin, ext), exp form (capped) for
     multiplicative factors.  The layout change is a pad-reshape skew, not a
-    gather — gathers under vmap are the XLA-TPU compile-time killer.
+    gather — gathers under vmap multiply XLA compile time.
     """
     luts = build_luts(codes, length, params, w_extra, pt_override=pt_ov)
     logs, exps = {}, {}
@@ -559,7 +558,8 @@ MAX_FOLD_BATCH = 128
 
 def _batch_bucket(b: int, n: int = 128) -> int:
     """Geometric batch buckets (8, 16, ..., cap): recompiles are bounded by
-    O(log B) variants instead of one per dataset size.  The cap bounds HBM —
+    O(log B) variants instead of one per dataset size.  The cap bounds device
+    memory —
     per-example device memory scales as O(n^2) LUTs + scan buffers, so the
     cap shrinks quadratically with sequence length (128 at n<=128 down to 8
     at n>=512); larger corpora are folded in cap-sized chunks."""
@@ -599,7 +599,7 @@ def mccaskill_bpp_batch_scaled(
     cap = _batch_bucket(1 << 30, n)  # length-dependent chunk cap
     if b > cap:
         # bounded in-flight chunked dispatch: keep at most MAX_PENDING chunk
-        # results queued on device before fetching the oldest, so peak HBM
+        # results queued on device before fetching the oldest, so peak device memory
         # is capped while dispatch, compute, and fetch still overlap.
         MAX_PENDING = 2
         pending: list = []

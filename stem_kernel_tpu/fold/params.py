@@ -129,7 +129,7 @@ class EnergyParams:
     special_hairpins: dict = field(default_factory=dict)  # seq -> total score
     max_interior: int = 30  # total unpaired bases in an interior/bulge loop
     # fast tier (--fast-fold): drop the int11/int21/int22/bulge-1 special
-    # tables (constructed approximations anyway, BASELINE.md) and collapse
+    # tables (constructed approximations anyway) and collapse
     # the four interior mismatch classes to two (generic interior, bulge)
     # — every loop still gets a principled generic-formula energy
     fast: bool = False

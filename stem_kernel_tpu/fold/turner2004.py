@@ -28,8 +28,7 @@ transcribed from the published set rather than machine-copied:
   first-mismatch bonuses for G.A/A.G, G.G, U.U).  Individual small-interior
   entries may deviate from Vienna's tables by a few tenths of a kcal/mol;
   helix, loop-initiation, and multiloop energetics (which dominate BPP
-  structure) are exact.  BASELINE.md states the resulting expected delta
-  vs Vienna; tests/golden/ pins this model's BPPs exactly.
+  structure) are exact; tests/golden/ pins this model's BPPs exactly.
 
 Byte-faithful Vienna parity remains available through
 ``fold.params.load_params_file`` on a real ``rna_turner2004.par``.

@@ -7,7 +7,7 @@ models.composite.featurize_stem_bucketed) and the Gram is assembled
 block-by-block over bucket pairs: each block runs at the pad shapes of its
 two buckets only.  The reference pays exact per-example sizes by streaming
 C++ objects (/root/reference/common/kernel_matrix.cpp:44-56,
-stem_kernel_lite/data.cpp:547-586); geometric buckets are the TPU
+stem_kernel_lite/data.cpp:547-586); geometric buckets are the
 equivalent — O(log N) compiled shapes, <= 2x padding waste.
 
 Every kernel in the framework is shape-generic in N_x vs N_y (closure

@@ -1,6 +1,6 @@
 """IUPAC RNA alphabet and byte encoding.
 
-TPU-native equivalent of the reference's RNA data model
+Array-native equivalent of the reference's RNA data model
 (/root/reference/common/rna.h:12-35, /root/reference/common/rna.cpp:14-96):
 a 16-code IUPAC alphabet with A/C/G/U(T) as codes 0..3, GAP as 4, and the
 ambiguity codes 5..15.  Fractional IUPAC->ACGU weights follow

@@ -1,11 +1,11 @@
 """Alignments and column-wise profile tensors.
 
-TPU-native equivalent of the reference's ProfileSequence
+Array-native equivalent of the reference's ProfileSequence
 (/root/reference/common/profile.h:12-76, common/profile.cpp:44-90): a
 column-wise nucleotide frequency profile of an alignment, N_RNA+1 floats per
 column (A,C,G,U plus the GAP fraction), with IUPAC ambiguity codes contributing
 fractional counts.  Here the profile is a dense ``(L, 5)`` float32 array —
-the natural operand for MXU-driven expected-substitution scores
+the natural operand for matmul-driven expected-substitution scores
 (P_x @ S @ P_y^T as a batched matmul).
 """
 

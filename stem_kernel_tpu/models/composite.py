@@ -51,9 +51,9 @@ class StemLiteConfig:
     bp_opts: BPMatrixOptions = field(default_factory=BPMatrixOptions)
     node_pad_multiple: int = 16
     len_pad_multiple: int = 8
-    # MXU precision for the closure fixed point (models/stem_kernel.py):
-    # "high" (~1e-3 rel, +45% TPU throughput) is the shipped default;
-    # "highest" is the full-f32 validation mode (--precision highest).
+    # float32 matmul precision of the closure fixed point
+    # (models/stem_kernel.py:PRECISIONS); "highest" is the full-f32
+    # validation mode (--precision highest).
     precision: str = "high"
 
 
@@ -88,7 +88,7 @@ def _pack_stem_features(
         k: np.stack([f[k] for f in dag_feats]) for k in dag_feats[0]
     }
     # gap-closure + root-reach solves: batched unit-triangular solves on
-    # device instead of per-example host LAPACK (VERDICT r1 weak #5)
+    # device instead of per-example host LAPACK
     feats = closure_features(stacked)
 
     if not config.no_string:
@@ -143,8 +143,8 @@ def featurize_stem_bucketed(
 
     Returns a list of (example_indices, feature dict, iters) buckets, each
     padded to ITS OWN geometric node/length bound, so one 300-node outlier
-    no longer inflates every example's closure tensors (VERDICT r2 weak #4;
-    the reference streams per-example exact-size DAGs,
+    no longer inflates every example's closure tensors (the reference
+    streams per-example exact-size DAGs,
     /root/reference/common/kernel_matrix.cpp:44-56).  Cross-bucket kernel
     evaluation works because every kernel is shape-generic in N_x vs N_y.
     """

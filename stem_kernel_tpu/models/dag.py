@@ -8,7 +8,7 @@ probability, weighted base-pair frequency profiles) and the postprocessing
 passes find_root / find_max_parent / fill_weight
 (data.cpp:396-453).
 
-The output is an array encoding designed for the TPU kernel:
+The output is an array encoding designed for the batched kernel:
 
 - dense per-node features (bp_freq as a flat 16-vector, weights, spans),
 - dense (N, N) edge-coefficient matrices A (match path) and B (gap path),
@@ -17,7 +17,7 @@ The output is an array encoding designed for the TPU kernel:
   Both inverses exist because the DAGs are acyclic (B, T strictly
   triangular in topological order), and they are what turns the reference's
   per-cell IX/IY recursions (stem_kernel.cpp:61-86) into closed-form
-  matmuls on the MXU — see models/stem_kernel.py.
+  matmuls — see models/stem_kernel.py.
 """
 
 from __future__ import annotations
@@ -258,7 +258,7 @@ def dag_operators(dag: StemDAG, loop_gap: float, n_pad: int) -> dict[str, np.nda
     The gap-closure V = (I - B)^{-1} and root-reach u = (I - T^T)^{-1} r are
     NOT computed here — :func:`closure_features` solves them batched on
     device (children precede parents in topological order, so I - B is unit
-    lower-triangular and the closures are triangular solves on the MXU, not
+    lower-triangular and the closures are triangular solves as matmuls, not
     host-side O(N^3) LAPACK per example).
     """
     n = dag.n_nodes

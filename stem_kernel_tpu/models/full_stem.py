@@ -1,6 +1,6 @@
 """The full O(n^2 m^2) stem kernel (the reference implementation's kernel).
 
-TPU redesign of /root/reference/stem_kernel/stem_kernel.cpp:83-351: the
+Redesign of /root/reference/stem_kernel/stem_kernel.cpp:83-351: the
 8-state DP (K0-K3/G0-G3) over pairs of substrings (i,j) x (k,l).  The
 reference walks a 4-index loop nest with lazily allocated per-(i,j) tables;
 here the DP is a `lax.scan` over x-span length d with everything else
@@ -448,7 +448,7 @@ def full_stem_kernel_banded_log(
 ) -> jax.Array:
     """Windowed-memory full stem kernel: O(B n W^2) live state, W = 2*band+1.
 
-    The TPU equivalent of the reference's banded partial_dp with row
+    The array-native equivalent of the reference's banded partial_dp with row
     recycling (/root/reference/stem_kernel/stem_kernel.cpp:165-246,
     stem_kernel/dptable.h:41-116): each block (i, j=i+d) stores only a
     (W, W) window of the (k, l) plane anchored on the SCALED diagonal —
@@ -471,13 +471,12 @@ def full_stem_kernel_banded_log(
     (stem_kernel.cpp:179-191: clamped out-of-window reads), so values
     track the dense scaled-band kernel closely rather than exactly.
 
-    ``precision``: MXU mode for the (W, W) window contractions —
-    "highest" (full f32), "high" (3-pass), "default" (bf16); the same
-    trade documented for the lite stem kernel in BASELINE.md.
+    ``precision``: float32 matmul precision of the (W, W) window contractions,
+    with the meanings of models/stem_kernel.py:PRECISIONS.
 
     Returns log K.  Kernel values grow like 10^(0.15 n) on well-pairing
     inputs (the reference holds them in C++ doubles, stem_kernel.cpp:83);
-    to stay in float32 on the MXU the scan rescales all states per level
+    to stay in float32 the scan rescales all states per level
     by the running maximum of K0 and tracks the log-scale per pair —
     exactly the pf_scale trick of the McCaskill engine
     (fold/mccaskill_scaled.py).  Fresh-diagonal seeds entering below the
@@ -529,8 +528,8 @@ def full_stem_kernel_banded_log(
     zeros = jnp.zeros((bsz, n + 1, W, W), dt)
 
     # triangular contraction matrices (see round-3 notes: einsum, not scan —
-    # the associative_scan lowering crashes XLA-TPU's fusion emitter at
-    # W >= 33 on these shapes, and matmuls feed the MXU anyway)
+    # the associative_scan lowering crashed an XLA fusion emitter at
+    # W >= 33 on these shapes, and matmuls are the cheap path anyway)
     rel_w = w_idx[:, None] - w_idx[None, :]
     up_ones = (rel_w <= 0).astype(dt)
     up_gap = up_ones * gap ** jnp.maximum(-rel_w, 0).astype(dt)
@@ -596,7 +595,7 @@ def full_stem_kernel_banded_log(
         inj_k3 = inj_k3 * tri_w
         inj_g3 = inj_g3 * tri_w
 
-        # ---- within-window recursions (MXU contractions) ----
+        # ---- within-window recursions (matmul contractions) ----
         K3 = jnp.einsum("ab,xnbl->xnal", up_ones, inj_k3, precision=prec)
         G3 = jnp.einsum("ab,xnbl->xnal", up_gap, inj_g3, precision=prec)
         K2 = jnp.einsum("xnka,al->xnkl", K3, up_ones, precision=prec)

@@ -243,7 +243,7 @@ def alignment_constraints(
 def posterior_windows(x_codes, lx, y_codes, ly, bound, band=0):
     """Per-position y-windows (c_low, c_high), batched and jit-friendly.
 
-    TPU-native form of alignment_constraints: instead of tracing the MAP
+    Array-native form of alignment_constraints: instead of tracing the MAP
     path host-side (stem_kernel.cpp:13-81), anchor rows are those whose
     match posterior exceeds ``bound`` anywhere; window bounds interpolate
     between anchors via exclusive running max/min (the alignment is

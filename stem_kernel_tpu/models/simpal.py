@@ -9,14 +9,14 @@ the product of base-pair probabilities over the seed stem
 with at most ``tolerance`` seed mismatches, damped by exp(-|d_a - d_b|)
 (KernelFunc, simpal.cpp:225-282).
 
-TPU-first formulation: the feature map is a dense (4^seed, max_dist+1)
+Formulation: the feature map is a dense (4^seed, max_dist+1)
 array F, and the kernel factorizes over the two axes:
 
     K(a, b) = vec(F_a)^T (H ⊗ D) vec(F_b),   H[k1,k2] = [hamming <= tol],
                                              D[d1,d2] = exp(-|d1-d2|)
 
 so each example is transformed ONCE (T = H @ F @ D) and the entire Gram
-matrix is a single matmul  G = vec(T) @ vec(F)^T  on the MXU.
+matrix is a single matmul  G = vec(T) @ vec(F)^T.
 """
 
 from __future__ import annotations

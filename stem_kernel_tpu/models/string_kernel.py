@@ -1,6 +1,6 @@
-"""Gap-weighted all-substrings string kernels, batched for TPU.
+"""Gap-weighted all-substrings string kernels, batched over pairs.
 
-Reimplements (TPU-first, not a translation) the recursions of:
+Reimplements (a redesign, not a translation) the recursions of:
 
 - the profile string kernel
   (/root/reference/stem_kernel_lite/string_kernel.cpp:66-132):
@@ -16,8 +16,8 @@ Reimplements (TPU-first, not a translation) the recursions of:
   (/root/reference/string_kernel/string_kernel.cpp:11-51), which is the same
   recursion with v = G0[i-1][j-1] * gap^2 * [x_i == y_j].
 
-TPU design: the per-cell substitution score becomes a precomputed (B, Lx, Ly)
-score tensor (an MXU matmul over column profiles), and the row recursion
+Design: the per-cell substitution score becomes a precomputed (B, Lx, Ly)
+score tensor (a matmul over column profiles), and the row recursion
 becomes a `lax.scan` over rows whose inner column dependencies (K1 cumulative
 sum, G1 first-order recurrence) are parallel associative scans — O(Lx) scan
 steps of O(B*Ly) vector work rather than O(Lx*Ly) sequential cells.
@@ -68,7 +68,7 @@ def profile_subst_scores(
     the normalizer is zero (all-gap column), matching subst_score at
     /root/reference/stem_kernel_lite/string_kernel.cpp:44-64.
 
-    The numerator is a batched matmul (MXU); the denominator an outer product
+    The numerator is a batched matmul; the denominator an outer product
     of column sums.
     """
     num = jnp.einsum(

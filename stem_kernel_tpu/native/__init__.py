@@ -83,7 +83,7 @@ def smo_solve_native(K, y, p, C_p, C_n, eps, max_iter):
     it = ctypes.c_long()
     # float32 Gram matrices (the framework's native dtype) go straight to the
     # f32 instantiation: converting an n x n matrix to float64 cost 50x the
-    # solve itself at n = 30k (measured, BASELINE.md round 5)
+    # solve itself at n = 30k (measured on the host CPU)
     if K.dtype == np.float32 and hasattr(lib, "smo_solve_f32"):
         K = np.ascontiguousarray(K, dtype=np.float32)
         lib.smo_solve_f32(K, y, p, n, C_p, C_n, eps, int(max_iter), alpha,

@@ -8,7 +8,7 @@ column index j through first-order recurrences such as
     G1[j] = v[j] + gap * G1[j-1]            (sum-product semiring)
     Y[j]  = max(q[j], Y[j-1] + ext)         (max-plus semiring)
 
-On TPU we restructure every such row update as an associative scan over j,
+We restructure every such row update as an associative scan over j,
 turning each DP row into O(log m) depth of vectorized work instead of m
 sequential steps.  The outer row loop stays a `lax.scan`; the batch of
 sequence pairs rides along as a leading vectorized axis.

@@ -95,7 +95,7 @@ class LBFGSB:
         Looped (not recursive): a step acceptance that immediately starts
         the next iteration re-enters the state machine in place, so a
         pathological zero-progress line search cannot grow the Python
-        stack (VERDICT r3 weak #8)."""
+        stack."""
         while True:
             rc = self._update_once(x, f, g)
             if rc is not None:

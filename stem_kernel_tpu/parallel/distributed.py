@@ -1,16 +1,19 @@
 """Multi-host bootstrap and scaling-efficiency measurement.
 
-The TPU-native replacement for the reference's MPI process model
+The device-mesh replacement for the reference's MPI process model
 (MPIState RAII, /root/reference/common/framework.h:418-433; mpirun rank
 spawning):
 
 - :func:`initialize` wires `jax.distributed` when launched across hosts
-  (JAX coordinator env or explicit args); single-process runs are no-ops;
-- :func:`global_mesh` builds the hosts x local-chips mesh — Gram pair tiles
-  shard across it, collectives ride ICI within a host's slice and DCN
-  across hosts;
+  (JAX coordinator env or explicit args); single-process runs are no-ops.
+  One process drives all the GPUs of its host;
+- :func:`global_mesh` builds a 1-D mesh over every device of every
+  process — Gram pair tiles shard across it.  The GPUs of one host are
+  joined all to all by NVLink, so the mesh follows the algorithm (one
+  data-parallel pair axis), not a topology; XLA hands its collectives to
+  NCCL;
 - :func:`scaling_efficiency` measures strong-scaling efficiency of a
-  batched kernel on 1..n devices (the >=80% target of BASELINE.md).
+  batched kernel on 1..n devices.
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ def initialize(coordinator: str | None = None, num_processes: int | None = None,
 
 
 def global_mesh(axis: str = "pairs") -> Mesh:
-    """1-D mesh over every chip of every host (pair-parallel Gram tiles)."""
+    """1-D mesh over every device of every host (pair-parallel Gram tiles)."""
     return Mesh(np.array(jax.devices()), (axis,))
 
 

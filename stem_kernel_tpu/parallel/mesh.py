@@ -1,6 +1,6 @@
 """Mesh construction and sharding helpers.
 
-TPU-native replacement for the reference's MPI backend
+Device-mesh replacement for the reference's MPI backend
 (/root/reference/common/kernel_matrix.cpp:184-483): instead of rank-strided
 pair loops with Ssend/Recv gathers to rank 0, the Gram pair axis is sharded
 over a device mesh with `NamedSharding`; XLA inserts the collectives, and
@@ -28,9 +28,10 @@ def resolve_mesh(n_devices: int = 0) -> Mesh | None:
     """Mesh for a CLI run: ``n_devices`` = 0 means every global device.
 
     The reference's binaries ARE the MPI programs — rank setup happens inside
-    main() (/root/reference/common/framework.h:418-433); this is the TPU
-    analogue used by cli.app.run_app.  Returns None (plain single-device
-    dispatch, no shard_map) when the resolved device count is 1.
+    main() (/root/reference/common/framework.h:418-433); this is the
+    device-mesh analogue used by cli.app.run_app.  Returns None (plain
+    single-device dispatch, no shard_map) when the resolved device count
+    is 1.
     """
     devices = jax.devices()
     if n_devices > 0:

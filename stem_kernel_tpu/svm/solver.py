@@ -10,9 +10,8 @@ select_working_set, calculate_rho).  The convex QP's decision values are
 unique, so this NumPy-vectorized implementation reproduces the reference's
 decision values within solver tolerance without per-element C++ loops.
 
-Shrinking is unnecessary here — now a MEASURED claim, not a rationale
-(VERDICT r4 #8; BASELINE.md round-5 SMO section): native solves on dense
-precomputed K cost 0.01 s at N=2k, 0.2-0.5 s at N=10k and 1.2-1.4 s at
+Shrinking is unnecessary here — a measured claim, on the host CPU: native
+solves on dense precomputed K cost 0.01 s at N=2k, 0.2-0.5 s at N=10k and 1.2-1.4 s at
 N=30k (5.9k iterations, ~200 us/iter).  The dominant cost at large N was
 an accidental O(N^2) float64 conversion in the ctypes wrapper (55 s at
 N=30k — 40x the solve), fixed by f32-native entry points; shrinking's

@@ -4,7 +4,7 @@ Upgrades the reference's observability (SURVEY.md §5): boost::timer
 accumulation around kernel evaluations + "elapsed time" prints
 (/root/reference/common/kernel_matrix.cpp:49-52, common/framework.h:139)
 become a stage-timer registry with pairs/sec throughput, and
-`device_profile` wraps `jax.profiler` trace collection for TPU runs.
+`device_profile` wraps `jax.profiler` trace collection for device runs.
 The memory probe mirrors estimate_memory_size
 (/root/reference/stem_kernel_lite/main.cpp:19-75).
 """

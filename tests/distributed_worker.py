@@ -2,7 +2,7 @@
 
 Usage: python distributed_worker.py <coordinator_port> <process_id> <num_procs> <outdir>
 
-Each worker initializes jax.distributed (the TPU-native equivalent of the
+Each worker initializes jax.distributed (the device-mesh equivalent of the
 reference's MPI::Init, /root/reference/common/framework.h:418-433), builds a
 global 2-process x 4-device CPU mesh, computes a sharded pair-kernel batch
 (the Gram engine's decomposition: pair indices sharded over the mesh,

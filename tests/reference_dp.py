@@ -1,7 +1,7 @@
 """Brute-force NumPy oracles for the DP kernels.
 
 Direct cell-by-cell evaluations of the published recursions (cited per
-function), used to validate the batched/associative-scan TPU implementations.
+function), used to validate the batched/associative-scan implementations.
 These are intentionally naive O(n*m) Python loops.
 """
 

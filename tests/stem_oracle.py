@@ -2,7 +2,7 @@
 
 A naive Python evaluation of the reference recursion
 (/root/reference/stem_kernel_lite/stem_kernel.cpp:14-95) used to validate the
-closure-matmul TPU formulation.  Nodes are in topological order (children
+closure-matmul formulation.  Nodes are in topological order (children
 before parents), matching the reference's DFS emission order.
 """
 

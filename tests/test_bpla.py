@@ -2,6 +2,7 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from stem_kernel_tpu.models.bpla import (
     BPLAKernel,
@@ -207,113 +208,137 @@ def test_log_space_padding_invariance():
     np.testing.assert_allclose(got, want, rtol=1e-4)
 
 
-def test_pallas_la_interpret_matches_scan():
-    from stem_kernel_tpu.ops.pallas_la import la_exp_pallas
+def rand_factors(b, lx, ly, k=6, scale=0.6, seed=7):
+    r = np.random.default_rng(seed)
+    fx = r.normal(size=(b, lx, k)).astype(np.float32) * scale
+    fy = r.normal(size=(b, ly, k)).astype(np.float32) * scale
+    return jnp.asarray(fx), jnp.asarray(fy)
 
-    beta, gap, ext = 0.11, -8.0, -0.75
-    S = rand_scores(5, 9, 7, lo=-3.0, hi=2.0)
-    lx = np.array([9, 6, 3, 9, 1], np.int32)
-    ly = np.array([7, 7, 2, 5, 1], np.int32)
-    got = np.asarray(
-        la_exp_pallas(
-            jnp.asarray(S), jnp.asarray(lx), jnp.asarray(ly), beta, gap, ext,
-            block_b=8, interpret=True,
-        )
-    )
-    mask = pair_mask(jnp.asarray(lx), 9, jnp.asarray(ly), 7)
-    want = np.asarray(local_alignment_exp(jnp.asarray(S), mask, beta, gap, ext))
+
+def factor_scores(fx, fy, alpha):
+    """The materialized score tensor the factors stand for."""
+    wp = jnp.einsum("bik,bjk->bij", fx[..., :2], fy[..., :2])
+    wu = jnp.einsum("bik,bjk->bij", fx[..., 2:], fy[..., 2:])
+    return alpha * wp + wu
+
+
+def triton_vs_scan(fx, fy, lx, ly, log, alpha=4.5, beta=0.11, gap=-8.0,
+                   ext=-0.75):
+    """(Triton kernel under the interpreter, plain scan) on the same pairs."""
+    from stem_kernel_tpu.models.bpla import local_alignment_log
+    from stem_kernel_tpu.ops.la_triton import la_factored_triton
+
+    lx, ly = jnp.asarray(lx, jnp.int32), jnp.asarray(ly, jnp.int32)
+    got = la_factored_triton(fx, fy, lx, ly, alpha, beta, gap, ext, log=log,
+                             interpret=True)
+    mask = pair_mask(lx, fx.shape[1], ly, fy.shape[1])
+    la = local_alignment_log if log else local_alignment_exp
+    want = la(factor_scores(fx, fy, alpha), mask, beta, gap, ext)
+    return np.asarray(got), np.asarray(want)
+
+
+def test_pallas_la_interpret_matches_scan():
+    fx, fy = rand_factors(5, 9, 7)
+    got, want = triton_vs_scan(fx, fy, [9, 6, 3, 9, 1], [7, 7, 2, 5, 1],
+                               log=False)
     np.testing.assert_allclose(got, want, rtol=1e-4)
 
 
 def test_pallas_la_log_interpret_matches_scan():
-    from stem_kernel_tpu.models.bpla import local_alignment_log
-    from stem_kernel_tpu.ops.pallas_la import la_log_pallas
-
-    beta, gap, ext = 0.11, -8.0, -0.75
-    S = rand_scores(5, 9, 7, lo=-3.0, hi=4.0)
-    lx = np.array([9, 6, 3, 9, 1], np.int32)
-    ly = np.array([7, 7, 2, 5, 1], np.int32)
-    got = np.asarray(
-        la_log_pallas(
-            jnp.asarray(S), jnp.asarray(lx), jnp.asarray(ly), beta, gap, ext,
-            block_b=8, interpret=True,
-        )
-    )
-    mask = pair_mask(jnp.asarray(lx), 9, jnp.asarray(ly), 7)
-    want = np.asarray(local_alignment_log(jnp.asarray(S), mask, beta, gap, ext))
+    fx, fy = rand_factors(5, 9, 7, scale=0.9)
+    got, want = triton_vs_scan(fx, fy, [9, 6, 3, 9, 1], [7, 7, 2, 5, 1],
+                               log=True)
     np.testing.assert_allclose(got, want, rtol=1e-4)
 
 
 def test_pallas_la_log_long_sequences_finite():
-    # exp space overflows f32 at this length; the scaled DP must stay finite
-    from stem_kernel_tpu.models.bpla import local_alignment_log
-    from stem_kernel_tpu.ops.pallas_la import la_log_pallas
-
-    beta, gap, ext = 0.11, -8.0, -0.75
-    S = np.full((2, 160, 160), 15.0, np.float32)
-    lx = np.array([160, 120], np.int32)
-    ly = np.array([160, 160], np.int32)
-    got = np.asarray(
-        la_log_pallas(jnp.asarray(S), jnp.asarray(lx), jnp.asarray(ly),
-                      beta, gap, ext, block_b=8, interpret=True)
-    )
-    mask = pair_mask(jnp.asarray(lx), 160, jnp.asarray(ly), 160)
-    want = np.asarray(local_alignment_log(jnp.asarray(S), mask, beta, gap, ext))
+    # exp space overflows f32 at this length; the log-space kernel must stay
+    # finite: a rank-3 factorization of the constant score 15
+    fx = jnp.zeros((2, 160, 3), jnp.float32).at[..., 2].set(15.0)
+    fy = jnp.zeros((2, 160, 3), jnp.float32).at[..., 2].set(1.0)
+    got, want = triton_vs_scan(fx, fy, [160, 120], [160, 160], log=True)
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=1e-4)
 
 
-def test_pallas_affine_fusion_interpret():
-    from stem_kernel_tpu.models.bpla import local_alignment_log
-    from stem_kernel_tpu.ops.pallas_la import la_exp_pallas, la_log_pallas
-
-    alpha, beta, gap, ext = 4.5, 0.11, -8.0, -0.75
-    wp = rand_scores(4, 9, 7, lo=0.0, hi=1.0)
-    wu = rand_scores(4, 9, 7, lo=-2.0, hi=2.0)
-    lx = np.array([9, 6, 3, 9], np.int32)
-    ly = np.array([7, 7, 2, 5], np.int32)
-    S = alpha * wp + wu
-    mask = pair_mask(jnp.asarray(lx), 9, jnp.asarray(ly), 7)
-    got = np.asarray(la_exp_pallas(
-        jnp.asarray(wp), jnp.asarray(lx), jnp.asarray(ly), beta, gap, ext,
-        scores2=jnp.asarray(wu), alpha=alpha, block_b=8, interpret=True))
-    want = np.asarray(local_alignment_exp(jnp.asarray(S), mask, beta, gap, ext))
-    np.testing.assert_allclose(got, want, rtol=2e-4)
-    got_l = np.asarray(la_log_pallas(
-        jnp.asarray(wp), jnp.asarray(lx), jnp.asarray(ly), beta, gap, ext,
-        scores2=jnp.asarray(wu), alpha=alpha, block_b=8, interpret=True))
-    want_l = np.asarray(local_alignment_log(jnp.asarray(S), mask, beta, gap, ext))
-    np.testing.assert_allclose(got_l, want_l, rtol=2e-4)
-
-
 def test_pallas_factored_matches_materialized():
-    # the factored kernels must equal the two-slab affine path on scores
-    # rebuilt from the same factors (the low-rank identity is exact)
-    from stem_kernel_tpu.ops.pallas_la import (
-        la_exp_factored, la_exp_pallas, la_log_factored, la_log_pallas)
+    # the factored kernel equals the scans on the score tensor rebuilt from
+    # the same factors (the low-rank identity is exact)
+    fx, fy = rand_factors(5, 21, 17, scale=0.4)
+    lx, ly = [21, 13, 3, 21, 1], [17, 17, 2, 9, 1]
+    got, want = triton_vs_scan(fx, fy, lx, ly, log=False)
+    np.testing.assert_allclose(got, want, rtol=2e-3)
+    got_l, want_l = triton_vs_scan(fx, fy, lx, ly, log=True)
+    np.testing.assert_allclose(got_l, want_l, rtol=2e-3, atol=2e-3)
 
-    alpha, beta, gap, ext = 4.5, 0.11, -8.0, -0.75
-    rng = np.random.default_rng(7)
-    B, Lx, Ly, K = 5, 21, 17, 6
-    fx = jnp.asarray(rng.normal(size=(B, Lx, K)).astype(np.float32) * 0.4)
-    fy = jnp.asarray(rng.normal(size=(B, Ly, K)).astype(np.float32) * 0.4)
-    lx = jnp.asarray(np.array([21, 13, 3, 21, 1], np.int32))
-    ly = jnp.asarray(np.array([17, 17, 2, 9, 1], np.int32))
-    wp = jnp.einsum("bik,bjk->bij", fx[..., :2], fy[..., :2])
-    wu = jnp.einsum("bik,bjk->bij", fx[..., 2:], fy[..., 2:])
 
-    want = la_exp_pallas(wp, lx, ly, beta, gap, ext, scores2=wu, alpha=alpha,
-                         block_b=8, interpret=True)
-    got = la_exp_factored(fx, fy, lx, ly, alpha, beta, gap, ext,
-                          block_b=8, interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=2e-3)
+@pytest.mark.parametrize(
+    "b, lx_max, ly_max, lx, ly",
+    [
+        # Lx != Ly, neither a multiple of the 32-column chunk
+        (3, 37, 45, [37, 20, 5], [45, 33, 44]),
+        # batch not a multiple of the 16-pair block, odd lengths
+        (19, 11, 13, list(range(1, 12)) + [11] * 8,
+         list(range(13, 2, -1)) + [7] * 8),
+        # zero-length pairs: K = 1 (log K = 0) exactly
+        (4, 8, 6, [0, 8, 0, 5], [6, 0, 0, 6]),
+    ],
+    ids=["lx_ne_ly", "ragged_batch", "zero_length"],
+)
+def test_triton_wrapper_padding_and_masking(b, lx_max, ly_max, lx, ly):
+    fx, fy = rand_factors(b, lx_max, ly_max, scale=0.5, seed=b)
+    got, want = triton_vs_scan(fx, fy, lx, ly, log=False)
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    got_l, want_l = triton_vs_scan(fx, fy, lx, ly, log=True)
+    np.testing.assert_allclose(got_l, want_l, rtol=1e-4, atol=1e-5)
+    empty = (np.asarray(lx) == 0) | (np.asarray(ly) == 0)
+    np.testing.assert_array_equal(got[empty], 1.0)
+    np.testing.assert_array_equal(got_l[empty], 0.0)
 
-    want_l = la_log_pallas(wp, lx, ly, beta, gap, ext, scores2=wu,
-                           alpha=alpha, block_b=8, interpret=True)
-    got_l = la_log_factored(fx, fy, lx, ly, alpha, beta, gap, ext,
-                            block_b=8, interpret=True)
-    np.testing.assert_allclose(np.asarray(got_l), np.asarray(want_l),
-                               rtol=2e-3, atol=2e-3)
+
+@pytest.mark.parametrize("platform", ["cpu", "gpu"])
+@pytest.mark.parametrize("log", [False, True], ids=["exp", "log"])
+def test_dispatch_choice(monkeypatch, platform, log):
+    """BPLAKernel sends a GPU call to the Triton kernel and a CPU call to
+    the plain scan, in both exp and log space."""
+    import jax
+
+    import stem_kernel_tpu.models.bpla as bpla
+    import stem_kernel_tpu.ops.la_triton as la_triton
+
+    calls = []
+
+    def record(name):
+        def fn(*args, **kw):
+            calls.append((name, kw.get("log")))
+            return jnp.zeros(args[0].shape[0])
+        return fn
+
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    monkeypatch.setattr(la_triton, "la_factored_triton", record("triton"))
+    monkeypatch.setattr(bpla, "local_alignment_exp", record("scan_exp"))
+    monkeypatch.setattr(bpla, "local_alignment_log", record("scan_log"))
+    r = np.random.default_rng(0)
+    d = {"profile": jnp.asarray(r.dirichlet(np.ones(4), (2, 10)), jnp.float32),
+         "p_left": jnp.full((2, 10), 0.3), "p_right": jnp.full((2, 10), 0.3),
+         "p_unpair": jnp.full((2, 10), 0.9), "length": jnp.asarray([10, 7])}
+    kern = BPLAKernel()
+    (kern.log_value if log else kern)(d, d)
+    if platform == "gpu":
+        assert calls == [("triton", log)]
+    else:
+        assert calls == [("scan_log" if log else "scan_exp", None)]
+
+
+@pytest.mark.parametrize("platform, max_ly, impl", [
+    ("gpu", 512, "triton"),
+    ("gpu", 513, "scan"),  # the kernel cannot hold the row: explicit rule
+    ("cpu", 64, "scan"),
+])
+def test_la_impl_shape_rule(platform, max_ly, impl):
+    from stem_kernel_tpu.models.bpla import la_impl
+
+    assert la_impl(platform, max_ly) == impl
 
 
 def test_bpla_factors_reproduce_score_parts():
@@ -338,19 +363,3 @@ def test_bpla_factors_reproduce_score_parts():
     wu2 = jnp.einsum("bik,bjk->bij", fx[..., 2:], fy[..., 2:])
     np.testing.assert_allclose(np.asarray(wp2), np.asarray(wp), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(np.asarray(wu2), np.asarray(wu), rtol=1e-4, atol=1e-5)
-
-
-def test_pallas_row_block_invariance():
-    from stem_kernel_tpu.ops.pallas_la import la_exp_pallas, la_log_pallas
-
-    beta, gap, ext = 0.11, -8.0, -0.75
-    S = rand_scores(4, 19, 13, lo=-3.0, hi=2.0)
-    lx = np.array([19, 11, 3, 16], np.int32)
-    ly = np.array([13, 13, 2, 7], np.int32)
-    args = (jnp.asarray(S), jnp.asarray(lx), jnp.asarray(ly), beta, gap, ext)
-    r1 = la_exp_pallas(*args, block_b=8, row_block=1, interpret=True)
-    r8 = la_exp_pallas(*args, block_b=8, row_block=8, interpret=True)
-    np.testing.assert_allclose(np.asarray(r1), np.asarray(r8), rtol=1e-5)
-    l1 = la_log_pallas(*args, block_b=8, row_block=1, interpret=True)
-    l8 = la_log_pallas(*args, block_b=8, row_block=8, interpret=True)
-    np.testing.assert_allclose(np.asarray(l1), np.asarray(l8), rtol=1e-5)

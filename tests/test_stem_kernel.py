@@ -208,60 +208,3 @@ def test_bucketed_gram_matches_flat():
         normalize=True, batch_size=8,
     )
     np.testing.assert_allclose(g, flat, rtol=2e-4, atol=1e-6)
-
-
-def test_pallas_fixed_point_matches_einsum_path():
-    """ops/pallas_stem (the TPU VMEM-resident fixed point) == the XLA
-    einsum path, in interpret mode on CPU: same operands, same values,
-    including per-pair dynamic iteration counts vs the static bound."""
-    import jax
-
-    from stem_kernel_tpu.models.composite import (
-        StemLiteConfig, featurize_stem_examples,
-    )
-    from stem_kernel_tpu.ops.pallas_stem import stem_fixed_point
-
-    seqs = ["gggaaaccc", "gcgcaaagcgc", "ggcaaagccaugcaaaagcau",
-            "gggcuauuagcucaguggua"]
-    cfg = StemLiteConfig(no_string=True, node_pad_multiple=8)
-    feats, iters = featurize_stem_examples(
-        [Alignment(rows=[s]) for s in seqs], cfg)
-    co = jnp.asarray(subst_co_table(cfg.beta))
-    ix = np.array([0, 1, 2, 3, 0, 2], np.int32)
-    iy = np.array([1, 2, 3, 0, 3, 1], np.int32)
-    x = {k: jnp.asarray(v)[ix] for k, v in feats.items()}
-    y = {k: jnp.asarray(v)[iy] for k, v in feats.items()}
-
-    # reference: the einsum path (backend is cpu under tests, so
-    # stem_kernel_pairs takes the XLA branch)
-    want = np.asarray(stem_kernel_pairs(x, y, co, iters=iters,
-                                        len_band=cfg.len_band))
-
-    # Pallas path, interpret mode, minus the leaf-leaf correction the
-    # wrapper adds outside the kernel
-    hp = jax.lax.Precision.HIGHEST
-    ns = jnp.einsum("bik,kl,bjl->bij", x["bp_freq"], co, y["bp_freq"],
-                    preferred_element_type=jnp.float32, precision=hp)
-    ns = ns + x["nbp_frac"][:, :, None] * y["gap2w"][:, None, :]
-    ns = ns + x["gap2w"][:, :, None] * y["nbp_frac"][:, None, :]
-    match_ok = ((1.0 - x["leaf"])[:, :, None] * (1.0 - y["leaf"])[:, None, :]
-                * x["valid"][:, :, None] * y["valid"][:, None, :])
-    band = (jnp.abs(x["length"][:, :, None] - y["length"][:, None, :])
-            <= cfg.len_band).astype(ns.dtype)
-    ns = ns * match_ok * band
-    L = x["leaf"][:, :, None] * y["leaf"][:, None, :]
-    itv = jnp.minimum(x["depth"], y["depth"]).astype(jnp.int32) + 1
-    got = np.asarray(stem_fixed_point(
-        ns, x["V"], y["V"], x["A"], y["A"], L, x["u"], y["u"], itv,
-        max_iters=iters, interpret=True))
-    leaf_term = np.asarray(
-        jnp.sum(x["u"] * x["leaf"], -1) * jnp.sum(y["r"] * y["leaf"], -1))
-    np.testing.assert_allclose(got + leaf_term, want, rtol=2e-6)
-
-    # static full-count iterations give identical values (fixed point is
-    # stable past the pair's depth)
-    got_full = np.asarray(stem_fixed_point(
-        ns, x["V"], y["V"], x["A"], y["A"], L, x["u"], y["u"],
-        jnp.full((len(ix),), iters, jnp.int32),
-        max_iters=iters, interpret=True))
-    np.testing.assert_allclose(got_full, got, rtol=1e-6)
